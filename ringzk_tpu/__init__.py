@@ -1,9 +1,9 @@
-"""ringzk_tpu: a TPU-native lattice zero-knowledge library (JAX/Pallas).
+"""ringzk_tpu: a batched lattice zero-knowledge library in JAX.
 
 Brand-new implementation of the BDLOP commitment scheme and sigma protocols
 ("More Efficient Commitments from Structured Lattice Assumptions",
 eprint 2016/997) with the capabilities of the Rust `ring-zk` crate, designed
-arrays-first for TPU: batched proofs as leading axes, exact mod-q arithmetic
+arrays-first for accelerators: batched proofs as leading axes, exact mod-q arithmetic
 on uint32 lanes, CRT-NTT polynomial products, jit/vmap/pjit throughout.
 
 Public surface mirrors the reference's re-exports

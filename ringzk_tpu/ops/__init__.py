@@ -1,1 +1,1 @@
-"""Arithmetic and sampling kernels (the reference's L1 layer, TPU-native)."""
+"""Arithmetic and sampling kernels (the reference's L1 layer, batched)."""

@@ -2,7 +2,7 @@
 
 Extends the modulus envelope to the reference's full ``ZqI64<Q>`` domain --
 any odd q < 2^63 (/root/reference/src/params.rs:18,121-127) -- without
-touching the TPU-hostile int64 multiply path: every operation below is
+a 64-bit multiply: every operation below is
 built from the 32x32->64 widening primitives in :mod:`ringzk_tpu.ops.u64`.
 
 Where it is used (ops/ntt.py wide rings): the ONLY mod-q multiplications

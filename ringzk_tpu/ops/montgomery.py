@@ -6,8 +6,9 @@ engine under both the CRT-NTT polynomial multiplier (30-bit NTT primes) and
 the final mod-q reconstruction (q = 3515337053 ~ 2^31.7).
 
 The reference (Rust `poly-ring-xnp1`'s ZqI64, see call sites in
-/root/reference/src/params.rs:121-138) uses native i64 `%`; TPUs have no
-64-bit integer datapath, so we use Montgomery form with 32-bit limbs instead.
+ring-zk src/params.rs:121-138) uses native i64 `%`; this library keeps
+every array 32-bit (no JAX x64), so it uses Montgomery form with 32-bit limbs
+instead.
 
 Conventions:
   * Residues live in [0, p) as uint32 ("normal form").

@@ -1,7 +1,7 @@
 """64-bit unsigned integer emulation on 32-bit lanes.
 
-TPUs have no native 64-bit integer datapath (JAX x64 is emulated and slow on
-TPU), but exact lattice arithmetic mod q ~ 2^31.7 needs 64-bit intermediates.
+The library runs without JAX x64 (int32/uint32 arrays throughout), but exact
+lattice arithmetic mod q ~ 2^31.7 needs 64-bit intermediates.
 This module represents a 64-bit unsigned value as a pair of uint32 arrays
 ``(hi, lo)`` and provides the handful of exact primitives everything else is
 built from:

@@ -1,10 +1,10 @@
 """Multi-device sharding of proof batches over a jax mesh.
 
 The reference is single-threaded CPU (SURVEY.md section 2.2); this module
-*introduces* the distributed story TPU-natively:
+*introduces* the distributed story:
 
   * data parallelism: the proof batch axis shards over the mesh "dp" axis
-    (across chips via ICI, across hosts via DCN) -- thousands of independent
+    (across the cards of a host, and across hosts) -- thousands of independent
     sigma-protocol round trips run as one pjit program;
   * tensor parallelism: the CRT prime axis (P=3 independent NTT residue
     channels, the leading axis of every NTT-domain array) shards over a
@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from ..ops.ntt import xla_transforms
 from ..params import Params
 from ..protocols import linear as linear_mod
 from ..protocols import open as open_mod
@@ -89,6 +90,8 @@ def _step_fn(roundtrip, n_data: int, mesh: Mesh, params: Params, axis: str):
     so no vmap is needed: the batch axes of the n_data proof inputs are
     sharded, the RNG key and ck are replicated, and XLA partitions the whole
     pipeline; the final jnp.all is the cross-device psum(AND) reduction.
+    The transforms trace as the XLA stage chain (ops.ntt.xla_transforms),
+    which GSPMD partitions like any elementwise program.
 
     Cached on (roundtrip, mesh, params, axis) with the commitment key as a
     traced argument, so repeated batches -- and repeated calls to the
@@ -105,7 +108,8 @@ def _step_fn(roundtrip, n_data: int, mesh: Mesh, params: Params, axis: str):
         out_shardings=(NamedSharding(mesh, P(axis)), repl),
     )
     def step(key, ck, *data):
-        ok, op_ok = roundtrip(key, ck, *data, params)
+        with xla_transforms():
+            ok, op_ok = roundtrip(key, ck, *data, params)
         ok = ok & op_ok
         return ok, jnp.all(ok)
 

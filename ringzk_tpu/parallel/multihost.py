@@ -22,12 +22,14 @@ from __future__ import annotations
 import os
 import time
 from functools import partial
+from typing import Sequence
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from ..ops.ntt import xla_transforms
 from ..params import Params
 from ..protocols import open as open_mod
 from ..protocols.commit import keygen
@@ -37,14 +39,21 @@ def init_distributed(
     coordinator_address: str | None = None,
     num_processes: int | None = None,
     process_id: int | None = None,
+    local_device_ids: Sequence[int] | None = None,
 ) -> tuple[int, int]:
     """Initialize jax.distributed for a multi-process run; no-op when
     single-process. Returns (process_index, process_count).
 
     Call before any other JAX use (device backends must not be initialized
-    yet). Arguments fall back to the standard env vars
-    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID), and on
-    TPU pods jax.distributed.initialize() can autodetect all three.
+    yet). Arguments fall back to the env vars JAX_COORDINATOR_ADDRESS /
+    JAX_NUM_PROCESSES / JAX_PROCESS_ID / JAX_LOCAL_DEVICE_IDS (comma-
+    separated); nothing is autodetected on a GPU host, so a multi-process
+    run must give the coordinator address, process count and id.
+
+    Layout on a GPU host: either one process drives every card of the host
+    (``local_device_ids`` None, the default), or each process owns one card
+    and passes its id -- without it every process would open every card
+    and reserve most of each card's memory.
     """
     coordinator_address = coordinator_address or os.environ.get(
         "JAX_COORDINATOR_ADDRESS"
@@ -53,18 +62,23 @@ def init_distributed(
         num_processes = int(os.environ["JAX_NUM_PROCESSES"])
     if process_id is None and "JAX_PROCESS_ID" in os.environ:
         process_id = int(os.environ["JAX_PROCESS_ID"])
+    if local_device_ids is None and os.environ.get("JAX_LOCAL_DEVICE_IDS"):
+        local_device_ids = [
+            int(i) for i in os.environ["JAX_LOCAL_DEVICE_IDS"].split(",")
+        ]
     if coordinator_address or (num_processes or 1) > 1:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,
             num_processes=num_processes,
             process_id=process_id,
+            local_device_ids=local_device_ids,
         )
     return jax.process_index(), jax.process_count()
 
 
 def global_mesh(axis: str = "dp") -> Mesh:
-    """1-D mesh over every device of every host (ICI within a host, DCN
-    across hosts)."""
+    """1-D mesh over every device of every host (NVLink within a host, the
+    network across hosts)."""
     return Mesh(np.asarray(jax.devices()).reshape(-1), (axis,))
 
 
@@ -123,13 +137,14 @@ def batch_verify_run(
             dtype=jnp.int32,
         )
         x = jax.lax.with_sharding_constraint(x, x_spec)
-        ok, op_ok = open_mod.roundtrip(kp, ck, x, params, chains=chains)
+        with xla_transforms():
+            ok, op_ok = open_mod.roundtrip(kp, ck, x, params, chains=chains)
         return (jnp.all(ok & op_ok),)
 
     (all_ok,) = step(krun)
     all_ok.block_until_ready()  # compile + warmup
     times = []
-    for w in range(3):  # median-of-3 windows (remote dispatch-rate swings)
+    for w in range(3):  # median-of-3 windows
         t0 = time.perf_counter()
         for i in range(iters):
             (all_ok,) = step(jax.random.fold_in(krun, w * iters + i))

@@ -9,7 +9,7 @@ axis and the roll-based butterfly network splits into:
   * cross-device stages (partner distance t >= N_local): lane i's partner
     i ^ t lives on device (dev ^ (t / N_local)) at the SAME local offset, so
     the exchange is one pairwise jax.lax.ppermute of the whole local block
-    per stage -- log2(n_dev) exchanges total, riding ICI;
+    per stage -- log2(n_dev) exchanges total, over the device interconnect;
   * local stages (t < N_local): identical to the single-device kernel on
     the local block (static rolls + selects).
 

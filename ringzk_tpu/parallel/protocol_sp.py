@@ -16,7 +16,7 @@ Usage mirrors parallel/mesh.py's dp-only wrappers:
     ok, all_ok = open_roundtrip_sp(mesh, key, ck, x, params)
 
 The commitment key is passed as a traced argument with its ring axes
-lane-sharded; its MXU digit operators (a layout that interleaves k and N)
+lane-sharded; its digit operators (a layout that interleaves k and N)
 are stripped -- the NTT matvec path is the sp-aware one.
 """
 
@@ -92,7 +92,7 @@ def _sp_step_fn(
     )
 
     def fn(key, ck, *data):
-        with ntt_mod.ring_override(ring):
+        with ntt_mod.ring_override(ring), ntt_mod.xla_transforms():
             ok, op_ok = roundtrip(key, ck, *data, params)
         ok = ok & op_ok
         return ok, jnp.all(ok)

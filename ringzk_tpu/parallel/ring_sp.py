@@ -5,7 +5,7 @@ Round 1 shipped the distributed butterfly network as a standalone
 :class:`SpRing` is a drop-in :class:`~ringzk_tpu.ops.ntt.RingContext` whose
 ``fwd``/``inv`` run the per-prime negacyclic NTTs under ``shard_map`` with the
 coefficient axis block-sharded over ``axis`` (log2(n_dev) pairwise ppermute
-exchanges per transform, riding ICI), while every *pointwise* protocol op --
+exchanges per transform, over the device interconnect), while every *pointwise* protocol op --
 NTT-domain MACs, Garner CRT, centered mod-q adds, 96-bit norm accumulations,
 samplers -- stays ordinary jnp code that XLA's SPMD partitioner shards
 automatically (lane-axis reductions become psums).
@@ -182,7 +182,8 @@ class SpRing(RingContext):
 
     def scalar_mul_add(self, d, m, t, num: int = NUM_PRIMES,
                        d_num: int | None = None):
-        """Composed chain only (the Pallas fused kernel is single-device).
+        """Composed chain only (the fused GPU kernel is not used in sharded
+        programs).
 
         ``d_num`` (the RingContext CSE hint, see RingContext.scalar_mul_add)
         is accepted for drop-in signature parity and ignored: the sharded

@@ -1,6 +1,6 @@
 """Public parameters for the BDLOP commitment scheme and sigma protocols.
 
-TPU-native re-design of the reference's ``Params`` struct
+Batched re-design of the reference's ``Params`` struct
 (/root/reference/src/params.rs:18-36): a frozen dataclass of Python ints
 (static under jit) carrying the scheme constants, the sigma formula, and the
 exact norm-bound predicates. Differences from the reference, by design:

@@ -1,6 +1,6 @@
 """Proof of Linear Relation x' = g * x (paper section 4.4), batched-first.
 
-TPU-native re-design of /root/reference/src/prove/linear.rs. The prover
+Batched re-design of ring-zk src/prove/linear.rs. The prover
 holds openings of two commitments c (to x) and cp (to x' = g*x) and proves
 the relation for a public scalar polynomial g.
 
@@ -203,7 +203,7 @@ def roundtrip(key, ck: CommitmentKey, g, x, params: Params, chains: int = 1):
     /root/reference/tests/test.rs:34-56) as one batched program.
 
     ``chains`` splits the leading batch axis into independent sub-chains
-    for cross-chain MXU/VPU overlap (see commit.chained_roundtrip)."""
+    for cross-chain overlap (see commit.chained_roundtrip)."""
     from . import commit as commit_mod
 
     if chains > 1:

@@ -1,6 +1,6 @@
 """Proof of Opening a commitment (paper section 4.4), batched-first.
 
-TPU-native re-design of /root/reference/src/prove/open.rs: the 3-move sigma
+Batched re-design of ring-zk src/prove/open.rs: the 3-move sigma
 protocol is four pure functions (prover commit -> verifier challenge ->
 prover response -> verifier verify) over pytrees of arrays, each jit-able
 and batched over arbitrary leading axes. The message pytrees mirror the
@@ -40,7 +40,7 @@ from .commit import (
 def gaussian_bound(params: Params, n_deg: int) -> int:
     """Static clamp bound for prover Gaussians: 16 sigma. A float32 N(0,1)
     draw exceeding 16 sigma has probability < 1e-56 -- the clamp never fires
-    in practice (it exists to give the MXU digit decomposition a static
+    in practice (it exists to give the digit decomposition a static
     bound) and leaves the sampler's distribution indistinguishable from the
     reference's unclamped one."""
     return 16 * params.standard_deviation(n_deg)
@@ -174,21 +174,11 @@ def roundtrip(key, ck: CommitmentKey, x, params: Params, chains: int = 1):
 
     ``chains`` splits the leading batch axis into that many INDEPENDENT
     sub-chains inside the same program (each drawing its own derived key).
-    The 3-move protocol's data dependencies serialize its MXU matvec
-    phases against its VPU transform/sampling phases; independent chains
-    give XLA's scheduler cross-chain overlap across those walls -- a
-    measured +7.9% at the round-4 headline config (557.96k vs 517.2k,
-    chains=2, batch 8192). The saturation point is build-dependent: round
-    4 measured chains=4 == chains=2; after round 5's honest-bound matvec
-    dedupe shortened each chain, chains=4 at batch 16384 won (702.9-708.8k);
-    and the round-5 chain-scaling retune found that at a FIXED ~4096
-    proofs per chain the headline keeps climbing with chain count to a
-    knee at 32 chains -- 16384x4 697.6k, 24576x6 717.1k, 32768x8 731.6k,
-    49152x12 740.8k, 65536x16 752.6k, 98304x24 758.8k, 131072x32 762.6k,
-    196608x48 760.5k, one session, every rung fetch-forced-validated
-    (BENCHMARKS.md "Round-5 headline"; r5_bench/campaign13-16). Identical
-    per-proof semantics and work; the random draws differ from the
-    unchained call (each chain consumes its own key split).
+    The 3-move protocol's data dependencies serialize its matvec phases
+    against its transform/sampling phases; independent chains give XLA's
+    scheduler cross-chain overlap across those walls. Identical per-proof
+    semantics and work; the random draws differ from the unchained call
+    (each chain consumes its own key split).
     """
     import os
 
@@ -217,12 +207,12 @@ def _roundtrip_staggered(key, ck: CommitmentKey, x, params: Params,
     """``chains`` sub-chains as an EXPLICIT software pipeline.
 
     The plain chained form hands XLA independent subgraphs and trusts its
-    latency-hiding scheduler to overlap one chain's VPU phases with
-    another's MXU phases. This variant pins the offset with
+    latency-hiding scheduler to overlap one chain's elementwise phases
+    with another's matmul phases. This variant pins the offset with
     `lax.optimization_barrier` walls: in stage t, chain c executes phase
     t - c (commit+opening-verify, challenge, response, verify), so every
-    wall pairs MXU-heavy phases (commit / verify matvecs) of one chain
-    against VPU-heavy phases (challenge sampling / response NTTs) of its
+    wall pairs matmul-heavy phases (commit / verify matvecs) of one chain
+    against elementwise phases (challenge sampling / response NTTs) of its
     neighbors. The opening verify lives in the SAME stage as its commit:
     its A.r matvec is CSE'd with the commit's own (the honest_r_bound
     dedupe), and a barrier between them would resurrect the deleted
@@ -231,10 +221,8 @@ def _roundtrip_staggered(key, ck: CommitmentKey, x, params: Params,
     Everything live crosses each barrier, so XLA cannot collapse the
     stagger by hoisting. Same per-proof semantics and key derivation as
     chained_roundtrip (bit-identical, tested). Trace-time opt-in
-    (RINGZK_STAGGER=1); measured (BENCHMARKS.md round-5): at chains=2 the
-    pinned pipeline beats free scheduling (656.2k vs 628.7k same
-    session), but free chains=4 (689.5k) beats both -- the default stays
-    un-pinned."""
+    (RINGZK_STAGGER=1); measured as a loss against free scheduling on the
+    previous accelerator, so the default stays un-pinned."""
     from . import commit as commit_mod
 
     x = jnp.asarray(x)  # same normalization as chained_roundtrip

@@ -1,6 +1,6 @@
 """Proof of Sum x' = sum_i g_i * x_i -- generalization of the linear proof.
 
-TPU-native re-design of /root/reference/src/prove/sum.rs (itself not in the
+Batched re-design of ring-zk src/prove/sum.rs (itself not in the
 paper; see its module doc). The VL summands are a *leading structure axis*
 ``V`` here -- xs: [..., V, l, N], gs: [..., V, N] -- so the whole vector of
 commitments/responses is one batched program instead of the reference's
@@ -253,7 +253,7 @@ def roundtrip(key, ck: CommitmentKey, gs, xs, params: Params, chains: int = 1):
     /root/reference/tests/test.rs:59-93) as one batched program.
 
     ``chains`` splits the leading batch axis into independent sub-chains
-    for cross-chain MXU/VPU overlap (see commit.chained_roundtrip)."""
+    for cross-chain overlap (see commit.chained_roundtrip)."""
     from . import commit as commit_mod
 
     if chains > 1:

@@ -9,10 +9,9 @@ Multi-host (one line per host, i = 0..P-1):
     python scripts/multihost_bench.py --coordinator HOST0:1234 \
         --num-processes P --process-id i --batch 65536
 
-On TPU pods the three flags can be omitted (autodetected). Prints one JSON
-line per host with proofs/s and the replicated batch verdict. The >=80%
-1->4 host scaling north-star (BASELINE.md) needs real multi-host hardware;
-this runner is the code-complete path for it.
+On GPU hosts the three flags are required (nothing is autodetected), and
+one process drives every card of its host. Prints one JSON line per host
+with proofs/s and the replicated batch verdict.
 """
 
 import argparse

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Regenerate transcript determinism goldens (run via scripts/pytest-cpu env)."""
+"""Regenerate transcript determinism goldens (on the CPU)."""
 import os, sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 os.environ["JAX_PLATFORMS"] = "cpu"

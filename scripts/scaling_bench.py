@@ -4,10 +4,10 @@
 Measures verified open proofs/s for the full dp-sharded round trip at 1, 2,
 4, ... devices (largest power of two available) with a fixed per-device
 batch (weak scaling), and reports efficiency vs linear scaling from the
-1-device rate. On a real TPU pod slice this is the >=80%-to-4-hosts
-north-star measurement; on the 8-device virtual CPU mesh
-(scripts/pytest-cpu environment) it validates the sharded program and
-collective layout, not real bandwidth.
+1-device rate. On the cards of one host this is the scaling measurement
+of config 5; on the 8-device virtual CPU mesh (scripts/pytest-cpu
+environment) it validates the sharded program and collective layout, not
+real bandwidth.
 
 Usage:
   python scripts/scaling_bench.py [--n 512] [--per-device 1024] [--iters 5]
@@ -24,12 +24,11 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0.5")
 
 import jax
 import jax.numpy as jnp
+
+from ringzk_tpu.utils import compile_cache
 
 
 def time_step(step, key, xs, iters):
@@ -43,6 +42,7 @@ def time_step(step, key, xs, iters):
 
 
 def main():
+    compile_cache.enable()
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=512)
     ap.add_argument("--per-device", type=int, default=1024)

@@ -1,8 +1,7 @@
-"""utils/benchtime.py: the shared self-diagnosing timing helpers every
-driver surface uses (bench.py, scripts/bench_all.py,
-scripts/baseline_configs.py). The helpers' records must be shaped exactly
-as BENCHMARKS.md documents them -- a silent format drift would strand the
-next round's band attribution."""
+"""utils/benchtime.py: the timing helpers every timing entry point uses
+(bench.py, scripts/bench_all.py, scripts/baseline_configs.py). Their
+records must keep their shape: a silent format drift would strand the
+comparison with earlier records."""
 
 import jax.numpy as jnp
 
@@ -26,19 +25,18 @@ def test_timed_row_and_windows_record():
     assert rec["median"] == round(100 / dt, 1)
 
 
-def test_fetch_forced_pass_orders_and_annotates():
-    def fn(x):
-        return x * 2
-
-    recs = [({}, fn, (jnp.ones(3),), 10), ({}, fn, (jnp.ones(3),), 20)]
-    benchtime.fetch_forced_pass(recs, iters=1)
-    assert recs[0][0]["ff_order"] == 0 and recs[1][0]["ff_order"] == 1
-    assert recs[0][0]["fetch_forced"] > 0 and recs[1][0]["fetch_forced"] > 0
+def test_gpu_name_and_power_limit_absent(monkeypatch):
+    """Without nvidia-smi on PATH the card label is None, never an error."""
+    monkeypatch.setenv("PATH", "")
+    assert benchtime.gpu_name_and_power_limit() is None
 
 
 def test_engine_fingerprint_shape(monkeypatch):
     monkeypatch.setenv("RINGZK_TESTFLAG", "1")
     fp = benchtime.engine_fingerprint()
     assert fp["flags"].get("RINGZK_TESTFLAG") == "1"
-    assert set(fp) == {"flags", "prng", "platform", "device"}
-    assert fp["platform"] == "cpu"  # the pytest-cpu env
+    assert set(fp) == {
+        "flags", "prng", "platform", "device", "device_count", "card"
+    }
+    assert fp["platform"] == "cpu"  # the test env
+    assert fp["device_count"] == 8

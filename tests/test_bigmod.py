@@ -240,22 +240,6 @@ def test_sp_ring_rejects_wide():
             ring_sp.SpRing(n=N, q=Q33, mesh=m)
 
 
-def test_wide_challenge_kernel_x64():
-    """The Pallas challenge-select kernel must lower and agree with top_k
-    under jax x64 (wide-ring runs at N >= 128 route through it on TPU):
-    jnp.sum's int32->int64 promotion under x64 previously broke Mosaic
-    lowering -- accumulator dtypes are now pinned (round-4 fix)."""
-    from conftest import env_override
-    from ringzk_tpu.ops import sampling
-
-    with jax.enable_x64(True):
-        with env_override("RINGZK_PALLAS_CHALLENGE", "1"):
-            d1 = sampling.challenge(jax.random.PRNGKey(5), (4,), 512, 36)
-        with env_override("RINGZK_PALLAS_CHALLENGE", "0"):
-            d2 = sampling.challenge(jax.random.PRNGKey(5), (4,), 512, 36)
-    np.testing.assert_array_equal(np.asarray(d1), np.asarray(d2))
-
-
 def test_wide_small_q_takes_ntt_path():
     """A wide modulus with a small sampling bound must NOT build the int8
     digit operator (its uint32 mont_mul fold cannot carry wide residues):
@@ -285,43 +269,3 @@ def test_polymul_tp_rejects_wide():
         a = jnp.zeros((16,), jnp.int64)
         with pytest.raises(ValueError, match="narrow"):
             ntt_tp.polymul_tp(m, a, a, 16, Q33)
-
-
-@pytest.mark.parametrize("params", ALL)
-def test_wide_pallas_ntt_bit_identical(params):
-    """Wide-ring Pallas NTT kernels (fwd limb-split + inv Garner limb-pair
-    fold, RINGZK_PALLAS=1, interpret mode on CPU) must match the XLA wide
-    path bit for bit -- transforms AND a full protocol roundtrip."""
-    from conftest import env_override
-    from ringzk_tpu.ops.pallas import ntt_kernel
-
-    with jax.enable_x64(True):
-        ring = get_ring(128, params.modulus)
-        x = jnp.asarray(
-            centered_rand(np.random.default_rng(110), params.modulus, (5, 128))
-        )
-        want_hat = np.asarray(ring.fwd(x))  # CPU default: XLA path
-        got_hat = np.asarray(
-            ntt_kernel.fwd_wide_all_pallas(
-                ring, x, ring.num_primes, interpret=True
-            )
-        )
-        np.testing.assert_array_equal(got_hat, want_hat)
-
-        want_back = np.asarray(ring.inv(jnp.asarray(want_hat)))
-        got_back = np.asarray(
-            ntt_kernel.inv_wide_all_pallas(
-                ring, jnp.asarray(want_hat), interpret=True
-            )
-        )
-        np.testing.assert_array_equal(got_back, want_back)
-        np.testing.assert_array_equal(got_back, np.asarray(x))
-
-        # routed end-to-end: full open roundtrip with the kernels on
-        ck = keygen(jax.random.PRNGKey(111), params, N)
-        xs = jnp.asarray(
-            centered_rand(np.random.default_rng(112), params.modulus, (2, params.l, N))
-        )
-        with env_override("RINGZK_PALLAS", "1"):
-            ok, op_ok = open_mod.roundtrip(jax.random.PRNGKey(113), ck, xs, params)
-        assert bool(jnp.all(ok)) and bool(jnp.all(op_ok))

@@ -1,7 +1,8 @@
 """Transcript determinism goldens: a fixed PRNG key must produce an
 identical protocol transcript (bit-for-bit wire encoding) on every platform
 and every run -- jax.random's threefry is counter-based and platform
-independent, and all arithmetic here is exact integer math.
+independent, and all arithmetic here is exact integer math. The goldens
+were made on the CPU; chip_smoke.py rebuilds them on a GPU and compares.
 
 If one of these digests changes, sampling order, wire layout, or ring
 arithmetic changed -- that is a breaking change to transcript compatibility
@@ -46,16 +47,26 @@ def build_transcript(params=PARAMS):
 
 def _build_transcript_body(params):
     dtype = jnp.int64 if params.modulus >= 2**32 else jnp.int32
-    kk, kx, kp, kc = jax.random.split(jax.random.PRNGKey(20260817), 4)
-    ck = rz.keygen(kk, params, N)
-    x = jax.random.randint(kx, (2, params.l, N), -params.q, params.q + 1, dtype=dtype)
-    rctx, pcom = open_mod.prover_commit(kp, ck, x, params)
-    vctx, chal = open_mod.generate_challenge(kc, pcom, params)
-    resp = open_mod.create_response(rctx, chal, params)
-    ok = open_mod.verify(ck, resp, vctx, params)
+
+    @jax.jit
+    def run(key):
+        # one compiled program (bit-identical to op-by-op dispatch: every
+        # op is integer-exact or the same float32 sampler)
+        kk, kx, kp, kc = jax.random.split(key, 4)
+        ck = rz.keygen(kk, params, N)
+        x = jax.random.randint(
+            kx, (2, params.l, N), -params.q, params.q + 1, dtype=dtype
+        )
+        rctx, pcom = open_mod.prover_commit(kp, ck, x, params)
+        vctx, chal = open_mod.generate_challenge(kc, pcom, params)
+        resp = open_mod.create_response(rctx, chal, params)
+        ok = open_mod.verify(ck, resp, vctx, params)
+        return ck.a1, ck.a2, pcom, chal, resp, ok
+
+    a1, a2, pcom, chal, resp, ok = run(jax.random.PRNGKey(20260817))
     assert bool(ok.all())
     return {
-        "ck": transcript_digest({"a1": ck.a1, "a2": ck.a2}),
+        "ck": transcript_digest({"a1": a1, "a2": a2}),
         "proof_commitment": transcript_digest(pcom),
         "challenge": transcript_digest(chal),
         "response": transcript_digest(resp),

@@ -2,7 +2,7 @@
 
 The reference runs 100 sequential randomized iterations per protocol at N=16
 (/root/reference/tests/test.rs); here the 100 iterations are a *batch axis*
-of one jitted program -- the TPU-native equivalent -- plus the negative-path
+of one jitted program -- the batched equivalent -- plus the negative-path
 tests the reference lacks (forged responses must fail; SURVEY.md section 4).
 """
 
